@@ -1,11 +1,11 @@
-"""openmeters_tpu — a TPU-native streaming audio-analysis framework.
+"""openmeters_tpu — a batched streaming audio-analysis framework on GPUs.
 
-A ground-up JAX/XLA/Pallas rebuild of the analysis core of OpenMeters
-(reference: /root/reference, v1.12.1, Rust).  Where the reference analyzes one
-desktop audio stream on a CPU, this framework analyzes a *batch* of thousands
-of concurrent streams on TPU chips: every analyzer is a pure function
-``(carry, block) -> (carry, snapshot)`` over ``[n_streams, ...]`` arrays, the
-engine scans it over hops, and streams shard data-parallel over an ICI mesh.
+A ground-up JAX/XLA rebuild of the analysis core of OpenMeters (v1.12.1,
+Rust).  Where the reference analyzes one desktop audio stream on a CPU, this
+framework analyzes a *batch* of thousands of concurrent streams on one or
+more GPUs: every analyzer is a pure function ``(carry, block) -> (carry,
+snapshot)`` over ``[n_streams, ...]`` arrays, the engine scans it over hops,
+and streams shard data-parallel over a device mesh.
 
 Subsystem map (reference parity noted per module):
 

@@ -9,7 +9,7 @@ Each analyzer is a frozen config dataclass exposing:
 mirroring the reference's ``Processor::new / process_block / reset_audio``
 surface (``src/visuals/*/processor.rs``) with resets expressed as per-stream
 masks.  Dynamic-length reference outputs (columns, point lists) become
-fixed-capacity arrays plus validity masks — the TPU-native encoding.
+fixed-capacity arrays plus validity masks — static shapes for XLA.
 """
 
 from openmeters_tpu.analyzers.loudness import LoudnessAnalyzer, LoudnessConfig  # noqa: F401

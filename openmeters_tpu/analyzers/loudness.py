@@ -5,11 +5,12 @@ short-term (3.0 s) and momentary (0.4 s) LUFS with surround channel weights,
 per-channel RMS fast (0.3 s) / slow (1.0 s), and libebur128-compatible
 4x/2x-oversampled true peak.
 
-TPU formulation:
+Batched formulation:
 
-- K-weighting runs as a cascade of the two BS.1770 second-order sections in
-  one ``lax.scan`` over the hop (numerically gentler in f32 than the
-  reference's convolved 5-tap f64 form, identical in exact arithmetic).
+- K-weighting runs as the cascade of the two BS.1770 second-order sections,
+  lifted to one block state-space map per hop (numerically gentler in f32
+  than the reference's convolved 5-tap f64 form, identical in exact
+  arithmetic).
 - The four trailing windows are drift-free block-sum rings
   (:class:`~openmeters_tpu.ops.windowed.BlockWindowedMeans`) queried once per
   hop — the batched equivalent of ``WindowedMeans<1,4>`` per channel.
@@ -32,11 +33,7 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
-from openmeters_tpu.ops.iir import (
-    biquad_cascade_scan,
-    flush_denormal_state,
-    lifted_iir_scan,
-)
+from openmeters_tpu.ops.iir import flush_denormal_state, lifted_iir_scan
 from openmeters_tpu.ops.truepeak import TruePeakKernel
 from openmeters_tpu.ops.windowed import BlockWindowedMeans
 from openmeters_tpu.utils.channels import MAX_AUDIO_CHANNELS
@@ -172,51 +169,11 @@ class LoudnessAnalyzer:
         kw_state = carry["kw"]
         if lane_reset is not None:
             kw_state = jnp.where(lane_reset, 0.0, kw_state)
-        # K-weighting cascade as the sequential unrolled XLA scan.  A Pallas
-        # hop kernel ran the recurrence ~1.5x faster in isolation but lost
-        # end-to-end (2.67 -> 32.8 ms/step on v5e): the custom-call boundary
-        # makes XLA insert layout-change copies of the *other* loudness
-        # carries (147 MB means-suffix + gating histograms) every hop, and
-        # pinning the carry layouts via jax.experimental.layout made it
-        # worse still (row-major pins force an 18.9 GB relayout copy of the
-        # means ring; OOM).  Deleted in round 3 — see NOTES.md.
-        from openmeters_tpu.utils.envflags import snapshot_flag
-
-        # Shape-adaptive path choice (static at trace time, r5 measurements
-        # on v5e): the lifted block state-space scan wins at SMALL batches
-        # where the 256-step sequential chain is latency-bound (default
-        # EngineConfig() S=1024: 6.19 -> 5.78 ms/step), but loses at scale
-        # where it is bandwidth-bound and its per-block reshapes balloon
-        # (headline S=8192: 3.54 -> 5.17 ms/step; S=16384 OOMs on a
-        # [*, 4, 16384, 2] materialization).
-        use_lifted = snapshot_flag("OPENMETERS_LIFTED_KW") or (
-            s * c <= 4096 and not snapshot_flag("OPENMETERS_SEQ_KW")
-        )
-        if use_lifted:
-            # lift == the whole block: one [B, B] lower-triangular affine
-            # map per hop, no scan at all (the [*, 4, B, lanes] per-block
-            # scan intermediates measured ~0.14 ms/hop of layout copies at
-            # lift=32)
-            filtered, kw_state = lifted_iir_scan(
-                x, kw_state, self._kw_coeffs, lift=b
-            )
-        else:
-            seq_state = jnp.stack(
-                [kw_state[0:2], kw_state[2:4]]
-            )  # [sections, 2, ...]
-            # unroll=32 is deliberate: a FULL unroll measures faster alone
-            # (1.69 -> 1.36 ms at S=16384) but destroys the combined
-            # loudness+spectrogram graph (headline 8.0 -> 20.6 ms — the
-            # straight-line 256-step chain breaks XLA's overlap with the
-            # sliding-DFT kernel), and compiles pathologically slowly on CPU.
-            filtered, seq_state = biquad_cascade_scan(
-                x,
-                seq_state,
-                self._kw_coeffs,
-                finite_reset=False,
-                unroll=32,
-            )
-            kw_state = jnp.concatenate([seq_state[0], seq_state[1]], axis=0)
+        # K-weighting as one lifted block map per hop: a [B, B]
+        # lower-triangular affine map over the two cascaded sections
+        # (measured faster on the GPU than the 256-step sequential scan at
+        # 2048 and at 32768 lanes, PERF.md)
+        filtered, kw_state = lifted_iir_scan(x, kw_state, self._kw_coeffs, lift=b)
         # per-block denormal flush of recursive state (processor.rs:281-285)
         kw_state = flush_denormal_state(kw_state)
 
@@ -242,7 +199,8 @@ class LoudnessAnalyzer:
         if cfg.gating:
             # weighted K-squared samples summed over channels: [S, B]
             wk2 = jnp.einsum(
-                "bsc,sc->sb", filtered * filtered, channel_weights.astype(jnp.float32)
+                "bsc,sc->sb", filtered * filtered,
+                channel_weights.astype(jnp.float32), precision=jax.lax.Precision.HIGHEST,
             )
             gate_carry = self._gate.push_block(carry["gate"], wk2, reset_mask)
             new_carry["gate"] = gate_carry

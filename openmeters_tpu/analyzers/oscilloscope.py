@@ -17,7 +17,7 @@ largest processor):
 - Snapshot: traces linearly resampled with fractional start offset
   (processor.rs:725-803).
 
-TPU formulation: everything is sized to the *static* worst case (period <=
+Batched formulation: everything is sized to the *static* worst case (period <=
 rate/20 Hz) with dynamic lengths expressed as masks; the reference's
 coarse-to-fine CPU correlation search (processor.rs:441-475) becomes one
 dense FFT cross-correlation — an exact superset of the strided search.  All
@@ -25,8 +25,8 @@ data-dependent control flow (lock/unlock, template reset) is masked
 ``jnp.where`` state in the carry.  The reference's template retune-resample
 (processor.rs:249-263) is replaced by a CENTER-ALIGNED template store —
 length changes become mask changes and big pitch jumps drop the template
-(see the centered-store comment in ``_locate``); a batched arbitrary-index
-gather would lower to serial row loops on TPU (52 ms @ [1024, 4800]).  Batched over ``[n_streams]``.
+(see the centered-store comment in ``_locate``).  Batched over
+``[n_streams]``.
 """
 
 from __future__ import annotations
@@ -55,8 +55,7 @@ MIN_SIGNAL_PEAK = 0.001
 MIN_PERIODICITY = 0.5
 PEAK_CUTOFF = 0.93
 
-# Sliding probe-spectrum exact re-anchor cadence (hops).  HIGH-precision
-# slide drift over 32 hops stays ~1e-5 relative — far below the NSDF
+# Sliding probe-spectrum exact re-anchor cadence (hops).  f32 slide drift over 32 hops stays ~1e-5 relative — far below the NSDF
 # decision thresholds (clarity/periodicity cuts at 0.5-0.93) — and the
 # amortized 8192-pt exact rfft cost drops 4x vs the original cadence of 8.
 PROBE_REFRESH = 32
@@ -483,8 +482,6 @@ class OscilloscopeAnalyzer:
         ~60 Hz, frame_clock.rs:102-118); the hop step never touches bulk
         trace data in this mode."""
         assert self.external_capture
-        from openmeters_tpu.ops.pallas_rows import window_rows
-
         cap2 = carry["cap"]
         s = carry["fresh"].shape[0]
         # logical index 0 of the right-aligned history window lives at
@@ -536,26 +533,19 @@ class OscilloscopeAnalyzer:
         max_lag = min(self.max_period, p // 2)
         nfft = self.nsdf_fft
 
-        e = _cumsum_mxu(c * c)
+        e = jnp.cumsum(c * c, axis=-1)
         e = jnp.concatenate([jnp.zeros_like(e[..., :1]), e], axis=-1)  # [S, P+1]
         total = e[..., -1]
-        # contiguous slices, NOT int-array indexing (gathers lower to serial
-        # row loops on TPU): e[p - tau] = reversed slice, e[tau] = prefix
+        # e[p - tau] = reversed slice, e[tau] = prefix
         left = jnp.flip(e[..., p - max_lag : p + 1], axis=-1)  # e[p - tau]
         right = total[..., None] - e[..., : max_lag + 1]
 
         last_peak = jnp.max(jnp.abs(c), axis=-1)
         from openmeters_tpu.ops.fft import irfft_mxu, rfft_mxu
 
-        # NSDF transforms run at Precision.HIGH (3 MXU-internal bf16
-        # passes): unlike the trigger's correlation argmax (HIGHEST in the
-        # fused kernel — see pallas_corr), every NSDF consumer tolerates
-        # bf16x3-class error: lock/zero-crossing/cutoff decisions compare
-        # against 0.5/0.93-class thresholds, and for tonal content (the
-        # only case where lock matters) the autocorrelation's spectrum is
-        # concentrated, so the inverse's cancellation amplification that
-        # produces 3e-3-of-peak on NOISE inputs collapses to ~2^-17-class.
-        HIGH = jax.lax.Precision.HIGH
+        # full f32 (HIGHEST): a TF32 transform leaves ~2^-11 relative error
+        # on the spectral products, which the inverse's cancellation
+        # amplifies into the NSDF peak the lock decisions threshold
         if pspec is not None:
             _, _, _, _, d_re, d_im = _probe_slide_consts(
                 p, self.config.block_frames, nfft
@@ -564,12 +554,9 @@ class OscilloscopeAnalyzer:
             c_im = pspec[1] - mean * d_im
             power = c_re * c_re + c_im * c_im
         else:
-            spec = rfft_mxu(c, nfft, precision=HIGH)
+            spec = rfft_mxu(c, nfft)
             power = jnp.real(spec) ** 2 + jnp.imag(spec) ** 2
-        ac = irfft_mxu(
-            power, jnp.zeros_like(power), nfft,
-            precision=HIGH, out_len=max_lag + 1,
-        )
+        ac = irfft_mxu(power, jnp.zeros_like(power), nfft, out_len=max_lag + 1)
 
         taus = np.arange(max_lag + 1)
         denom = left + right
@@ -601,9 +588,8 @@ class OscilloscopeAnalyzer:
         peak = jnp.argmax(early, axis=-1)  # first True
         peak = jnp.where(jnp.any(early, axis=-1), peak, best_idx)
 
-        # neighbor reads as fused one-hot reductions (vmap scalar indexing
-        # lowers to a serial per-row loop on TPU — ~0.4 ms per take at
-        # S=1024; these three fuse into one pass).  Edge clamping is
+        # neighbor reads as fused one-hot reductions (these three fuse into
+        # one pass).  Edge clamping is
         # unnecessary: whenever `detected` holds, first_tau <= peak < max_lag
         # keeps peak±1 in range, and undetected lanes discard the values.
         y0, y1, y2 = _onehot_neighbors(nsdf, peak)
@@ -707,8 +693,6 @@ class OscilloscopeAnalyzer:
         # search+klen are garbage (mirror/stale ring data) that every
         # consumer masks away; the double-write mirror guarantees any
         # start in [0, cap) reads a contiguous window.
-        from openmeters_tpu.ops.pallas_rows import window_rows
-
         ring_cap = trace.shape[1] // 2
         w_start = (shift + jnp.maximum(left - before, 0)) % ring_cap
 
@@ -720,12 +704,11 @@ class OscilloscopeAnalyzer:
         # cannot change a single output; only the mean_state EMA itself is
         # kept (fed from the region mean computed below).
 
-        # Centered template store — the TPU-first replacement for the
+        # Centered template store — the batched replacement for the
         # reference's retune resample (processor.rs:249-263,486-498).  The
         # reference lerp-resamples its template whenever its length changes
-        # or pitch moves >1 semitone; a batched per-row arbitrary gather
-        # lowers to serial row loops on TPU (measured 52 ms @ [1024,4800]).
-        # Instead the template lives CENTER-ALIGNED in the [S, kcap]
+        # or pitch moves >1 semitone, a per-row arbitrary gather.  Instead
+        # the template lives CENTER-ALIGNED in the [S, kcap]
         # buffer: a klen change is then a pure mask change (the centers the
         # reference's resample preserves already coincide), the per-stream
         # store offset folds into the correlation's phase-shift base, and a
@@ -755,83 +738,19 @@ class OscilloscopeAnalyzer:
 
         # Forward transform: one batched call covers the work window and the
         # blended template; sliding dots land on a static slice via the
-        # phase-shift theorem.  Precision stays HIGHEST: bf16x3-class dots
-        # (HIGH, or explicit splits) leave ~2^-17 relative error on the
-        # spectral products, which the inverse DFT's cancellation amplifies
-        # to ~3e-3 of the correlation peak — enough to jitter the argmax
-        # and swamp the parabolic refinement for low-f0 streams (NOTES r4).
-        from openmeters_tpu.ops.fft import irfft_mxu, rfft_mxu
-
+        # phase-shift theorem.  Precision stays HIGHEST: reduced-precision
+        # dots leave relative error on the spectral products that the
+        # inverse DFT's cancellation amplifies into the correlation peak —
+        # enough to jitter the argmax and swamp the parabolic refinement
+        # for low-f0 streams.
         nfft = self.corr_fft
         edges = jnp.where(kmask, _edge_template(klen, p, kcap, off), 0.0)
         template = jnp.where(
             use_reference[:, None] & kmask, edges + reference, edges
         )
-        from openmeters_tpu.ops.pallas_corr import (
-            corr_dots,
-            corr_dots_sums,
-            pallas_enabled,
-        )
-
-        wlen = search + klen
-        wlen_f = jnp.maximum(wlen.astype(jnp.float32), 1.0)
-        use_kernel = pallas_enabled() and nfft & (nfft - 1) == 0 and nfft >= 1024
-        if use_kernel:
-            # fused VMEM-resident kernel: the work window is gathered from
-            # the mirrored ring IN-KERNEL (no [S, wcap] materialization,
-            # pad or tiled-layout copy), then forward DFTs + conj-product +
-            # per-stream anchor + one-sided inverse, zero HBM
-            # intermediates.  The sliding window sums and the region mean
-            # ride along: an in-VMEM cumsum + one-hot shift matmuls (exact
-            # f32-class) replace the XLA [2S, wcap] cumsum, its layout
-            # copies, and the per-row window reads.
-            from openmeters_tpu.ops.pallas_corr import corr_dots_sums_ring
-
-            dots_m, sx, sxx, wmean = corr_dots_sums_ring(
-                trace, w_start, template, klen, wlen, -off, nfft,
-                scap + 1, wcap=wcap,
-            )
-        else:
-            work = window_rows(trace, w_start, wcap)
-            stacked = jnp.concatenate(
-                [work, jnp.pad(template, ((0, 0), (0, wcap - kcap)))], axis=0
-            )
-            sf = rfft_mxu(stacked, nfft)
-            wf = sf[:s]
-            wf_re, wf_im = jnp.real(wf), jnp.imag(wf)
-            # dots anchor on the template grid: start-aligned work puts the
-            # first searched offset at index 0, so the anchor is just the
-            # (negative) centered-store offset
-            ph_re, ph_im = _shift_phase(-off, nfft)
-
-            def dots_of(f):  # irfft((wf·conj(f))·anchor) at offsets 0..scap
-                c_re = wf_re * jnp.real(f) + wf_im * jnp.imag(f)
-                c_im = wf_im * jnp.real(f) - wf_re * jnp.imag(f)
-                d_re, d_im = _cmul(c_re, c_im, ph_re, ph_im)
-                return irfft_mxu(d_re, d_im, nfft, out_len=scap + 1)
-
-            dots_m = dots_of(sf[s:])
-
-
-            # sliding window sums from ONE batched MXU cumsum over
-            # [work; work²]: sx[o] = cs[o + klen] - cs[o] — one Pallas
-            # window read at klen plus a STATIC prefix slice
-            # (start-aligned work puts offset 0 at index 0)
-            cs2 = _cumsum_mxu(jnp.concatenate([work, work * work], axis=0))
-            cs2 = jnp.concatenate(
-                [jnp.zeros_like(cs2[:, :1]), cs2], axis=-1
-            )
-            hi2 = window_rows(cs2, jnp.tile(klen, 2), scap + 1)
-            lo2 = cs2[:, : scap + 1]
-            sx = hi2[:s] - lo2[:s]
-            sxx = hi2[s:] - lo2[s:]
-            # region mean for the mean_state EMA: the valid region is
-            # [0, search + klen) — a one-hot prefix read of the cumsum
-            oh_w = (
-                jnp.arange(wcap + 1, dtype=jnp.int32)[None, :]
-                == wlen[:, None]
-            ).astype(jnp.float32)
-            wmean = jnp.sum(cs2[:s] * oh_w, axis=-1) / wlen_f
+        work = window_rows(trace, w_start, wcap)
+        dots_m = correlation_dots(work, template, -off, nfft, scap + 1)
+        sx, sxx, wmean = window_sums(work, klen, search + klen, scap + 1)
 
         mean_state = jnp.where(
             can_locate,
@@ -881,8 +800,7 @@ class OscilloscopeAnalyzer:
         # may start BEFORE the work window (off can exceed offset; klen >=
         # 1920 bounds off <= 1440) — in ring coordinates the mirrored
         # double-write makes any modulo start contiguous, so the read comes
-        # straight off the ring (the kernel path materializes no work
-        # array at all; the XLA fallback's window is the same ring span)
+        # straight off the ring (the same ring span as the work window)
         def candidate_at(offset, cmean):
             # centered extraction: store index off+u holds work[offset+u]
             seg = window_rows(
@@ -1039,7 +957,10 @@ class OscilloscopeAnalyzer:
             projection_vector(cfg.trigger_source),
         ]
         proj = np.stack(projs, axis=1)  # [2, 3]
-        newest = jnp.einsum("sbc,ch->shb", block.astype(jnp.float32), proj)  # [S,3,B]
+        newest = jnp.einsum(
+            "sbc,ch->shb", block.astype(jnp.float32), proj,
+            precision=jax.lax.Precision.HIGHEST,
+        )  # [S, 3, B]
         origin = carry["origin"]
         cap = self.ring_cap
         z = jnp.int32(0)
@@ -1090,7 +1011,7 @@ class OscilloscopeAnalyzer:
                 probe = jax.lax.dynamic_slice(
                     trig_flat, (z, shift + hist_len - p), (lanes_n, p)
                 )
-                spec = rfft_mxu(probe, nfft, precision=jax.lax.Precision.HIGH)
+                spec = rfft_mxu(probe, nfft)
                 return jnp.real(spec), jnp.imag(spec)
 
             def slide(_):
@@ -1101,12 +1022,11 @@ class OscilloscopeAnalyzer:
                     trig_flat, (z, shift + hist_len - b), (lanes_n, b)
                 )
                 delta = jnp.concatenate([leave, nb], axis=-1)
-                # HIGH: NSDF tolerates bf16x3-class error (see
+                # full f32 like the exact transform it stands in for (see
                 # _estimate_period); drift is bounded by the exact
                 # re-anchor every PROBE_REFRESH hops.  One lane-packed dot
-                # ([re | im] columns) instead of two half-dots: the slide is
-                # overhead-bound at these shapes, not FLOP-bound.
-                prec = jax.lax.Precision.HIGH
+                # ([re | im] columns) instead of two half-dots.
+                prec = jax.lax.Precision.HIGHEST
                 packed = jnp.einsum(
                     "sb,bk->sk",
                     delta,
@@ -1158,11 +1078,8 @@ class OscilloscopeAnalyzer:
             # capture windows: raw contiguous samples per trace (the
             # reference's linear downsample to <=4096 points happens
             # render-side, views.resample_trace — raw samples carry strictly
-            # more information).  One batched Pallas row-window extraction
-            # over the active traces (a per-row dynamic slice is a serial
-            # loop on TPU).
-            from openmeters_tpu.ops.pallas_rows import window_rows
-
+            # more information).  One batched row-window extraction over
+            # the active traces.
             active = [t for t in range(TRACE_COUNT) if self.active_traces[t]]
             # per-trace ring extraction: one window_rows per active trace on
             # its own ring (no [S*traces, 2*cap] stack copy)
@@ -1316,34 +1233,66 @@ def _probe_slide_consts(p: int, b: int, nfft: int):
     )
 
 
-def _cumsum_mxu(v):
-    """Inclusive cumsum along the last axis as a block-triangular MXU matmul.
+def window_rows(x, starts, length: int):
+    """Per-row contiguous windows ``out[s] = x[s, start[s] : start[s] +
+    length]`` — one gather.  ``starts`` (``[S]``, or ``[S, W]`` for W
+    windows per row) are clipped to ``[0, N - length]`` like
+    ``dynamic_slice``.  Returns ``[S, length]`` or ``[S, W, length]``."""
+    s, n = x.shape
+    assert length <= n, (length, n)
+    squeeze = starts.ndim == 1
+    st = starts[:, None] if squeeze else starts
+    st = jnp.clip(st.astype(jnp.int32), 0, n - length)
+    out = jax.vmap(
+        lambda row, ss: jax.vmap(
+            lambda s0: jax.lax.dynamic_slice(row, (s0,), (length,))
+        )(ss)
+    )(x, st)
+    return out[:, 0] if squeeze else out
 
-    ``jnp.cumsum`` lowers to a log-depth pad-chain on TPU (~13 full-array
-    passes at L=7200, plus [.., nb, 128] layout transposes — ~1 ms/step in
-    the oscilloscope at S=1024).  Here: intra-block prefix = ``[S, nb, 128]
-    x [128, 128]`` lower-triangular dot, inter-block = a cheap cumsum over
-    the ``[S, nb]`` block totals.  ``precision=HIGH`` (bf16x3 passes) with a
-    0/1 triangular matrix splits the *data* mantissa across passes, so the
-    result is exact to the f32 mantissa with f32 accumulation — the same
-    error class as the XLA cumsum.  (An explicit in-graph hi/mid/lo split
-    does NOT work: XLA's algebraic simplifier merges the three dots back
-    into one bf16 dot — measured 3e-3 relative error.)
-    """
-    s, length = v.shape
-    blk = 128
-    nb = -(-length // blk)
-    pad = nb * blk - length
-    vp = jnp.pad(v, ((0, 0), (0, pad))) if pad else v
-    vb = vp.reshape(s, nb, blk)
-    tri = jnp.asarray(np.tril(np.ones((blk, blk), np.float32)).T)  # [k, l]: k<=l
-    intra = jnp.einsum(
-        "snk,kl->snl", vb, tri, precision=jax.lax.Precision.HIGH
+
+def correlation_dots(work, template, anchor, nfft: int, n_offsets: int):
+    """Sliding dot products ``dots[s, o] = sum_k work[s, o + anchor[s] + k]
+    * template[s, k]`` for offsets ``o < n_offsets``, by one batched FFT of
+    ``[work; template]``, a conjugate product and a one-sided inverse.  The
+    per-stream ``anchor`` shift is a phase ramp (time-shift theorem), so
+    the inverse lands every stream on the same static slice.  ``nfft``
+    must cover ``work`` without wraparound at the offsets read."""
+    from openmeters_tpu.ops.fft import irfft_mxu, rfft_mxu
+
+    s, wcap = work.shape
+    tmpl = jnp.pad(template, ((0, 0), (0, wcap - template.shape[1])))
+    sf = rfft_mxu(jnp.concatenate([work, tmpl], axis=0), nfft)
+    wf, tf = sf[:s], sf[s:]
+    wf_re, wf_im = jnp.real(wf), jnp.imag(wf)
+    t_re, t_im = jnp.real(tf), jnp.imag(tf)
+    c_re = wf_re * t_re + wf_im * t_im  # wf · conj(tf)
+    c_im = wf_im * t_re - wf_re * t_im
+    ph_re, ph_im = _shift_phase(anchor, nfft)
+    d_re, d_im = _cmul(c_re, c_im, ph_re, ph_im)
+    return irfft_mxu(d_re, d_im, nfft, out_len=n_offsets)
+
+
+def window_sums(work, klen, wlen, n_offsets: int):
+    """Sliding sums of ``work`` and ``work²`` over ``klen[s]`` samples at
+    offsets ``o < n_offsets`` (``sx[s, o] = sum work[s, o : o + klen[s]]``),
+    plus the mean of ``work[s, :wlen[s]]``, from one cumsum over
+    ``[work; work²]``."""
+    s, wcap = work.shape
+    cs2 = jnp.cumsum(jnp.concatenate([work, work * work], axis=0), axis=-1)
+    cs2 = jnp.concatenate([jnp.zeros_like(cs2[:, :1]), cs2], axis=-1)
+    hi2 = window_rows(cs2, jnp.tile(klen, 2), n_offsets)
+    lo2 = cs2[:, :n_offsets]
+    sx = hi2[:s] - lo2[:s]
+    sxx = hi2[s:] - lo2[s:]
+    # a one-hot prefix read of the cumsum at wlen
+    oh_w = (
+        jnp.arange(wcap + 1, dtype=jnp.int32)[None, :] == wlen[:, None]
+    ).astype(jnp.float32)
+    wmean = jnp.sum(cs2[:s] * oh_w, axis=-1) / jnp.maximum(
+        wlen.astype(jnp.float32), 1.0
     )
-    totals = intra[..., -1]  # [S, nb]
-    carry = jnp.cumsum(totals, axis=-1) - totals  # exclusive block prefix
-    out = (intra + carry[..., None]).reshape(s, nb * blk)
-    return out[:, :length] if pad else out
+    return sx, sxx, wmean
 
 
 def _parabolic_refine(y0, y1, y2, tau):
@@ -1402,8 +1351,7 @@ def _norm_corr_single(x, y, mask):
 def _onehot_neighbors(values, idx):
     """``values [S, N]``, ``idx [S]`` → ``(values[idx-1], values[idx],
     values[idx+1])`` as fused one-hot reductions (out-of-range neighbors read
-    as 0).  ``vmap`` scalar indexing lowers to a serial per-row loop on TPU
-    (~0.4 ms per take at S=1024); these fuse into one vectorized pass."""
+    as 0), fused into one vectorized pass."""
     n = values.shape[-1]
     oh = (jnp.arange(n, dtype=jnp.int32)[None, :] == idx[:, None]).astype(
         values.dtype

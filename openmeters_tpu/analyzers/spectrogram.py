@@ -13,7 +13,7 @@ Reference parity: ``src/visuals/spectrogram/processor.rs``.  Two modes:
   in hops minus the Hilbert latency (processor.rs:439-488).  References:
   Auger & Flandrin 1995; Fulop & Fitz 2006.
 
-TPU formulation: hops become fixed-capacity column batches from
+Batched formulation: hops become fixed-capacity column batches from
 :class:`~openmeters_tpu.ops.framing.FrameBuffer`; the reference's
 variable-length culled point lists (bins below 1e-14 scaled power omitted)
 become full ``[bins]`` arrays plus a ``point_valid`` mask — static shapes for
@@ -202,6 +202,16 @@ class SpectrogramAnalyzer:
         )
 
     @property
+    def use_sliding_kernel(self) -> bool:
+        """The fused sliding hop (ops/sliding_kernel.py): on GPUs, for the
+        shapes it supports; the XLA slide serves everything else."""
+        return (
+            self.use_sliding
+            and jax.default_backend() == "gpu"
+            and self._sliding.fused_supported
+        )
+
+    @property
     def _sliding_reassigned(self):
         from openmeters_tpu.ops.sliding_reassigned import SlidingReassigned
 
@@ -292,13 +302,9 @@ class SpectrogramAnalyzer:
         cfg = self.config
         w = window_coefficients(cfg.window, cfg.fft_size)
         norm = fft_bin_normalization(w, cfg.fft_size)
-        from openmeters_tpu.ops.pallas_sliding import pallas_enabled
-
-        if pallas_enabled() and self._sliding.fused_supported:
-            # fused Pallas hop: slide + window + dB + u16 pack in one kernel
-            new_sdft, codes = self._sliding.step_fused(
-                sdft, info, norm, DB_FLOOR, emit_codes=True
-            )
+        if self.use_sliding_kernel:
+            # fused GPU hop: slide + window + dB + u16 pack in one kernel
+            new_sdft, codes = self._sliding.step_fused(sdft, info, norm, DB_FLOOR)
             return new_sdft, ClassicColumns(codes=codes, valid=info["valid"])
         new_sdft, power = self._sliding.step(sdft, info)
         db = power_to_db(power * norm, DB_FLOOR)
@@ -354,45 +360,12 @@ class SpectrogramAnalyzer:
         w = window_coefficients(cfg.window, n)
         norm = fft_bin_normalization(w, pfft)
 
-        from openmeters_tpu.ops.pallas_reassigned import (
-            reassigned_columns,
-            reassigned_supported,
-        )
-
-        if pfft == n and reassigned_supported(n, h):
-            # fused Pallas column transform: forward FFT -> analytic
-            # selection -> inverse FFT -> crop -> U/V FFTs -> window
-            # stencils -> corrections, all in VMEM (ops/pallas_reassigned.py)
-            s, cap, _ = frames.shape
-            fk, tk, pk = reassigned_columns(
-                frames.reshape(s * cap, h),
-                n=n, h=h, coeffs=cfg.window.cosine_coefficients,
-                sample_rate=cfg.sample_rate, hop=cfg.hop_size,
-            )
-            freq_hz = fk.reshape(s, cap, n)[..., :bins]
-            time_offset = tk.reshape(s, cap, n)[..., :bins]
-            scaled_power = pk.reshape(s, cap, n)[..., :bins]
-            max_hz = cfg.sample_rate * 0.5
-            point_valid = (
-                (scaled_power >= ANALYSIS_FLOOR_POWER)
-                & (freq_hz > 0.0)
-                & (max_hz - freq_hz > 0.0)
-                & valid[..., None]
-            )
-            return ReassignedColumns(
-                freq_hz=freq_hz,
-                time_offset=time_offset,
-                power=scaled_power,
-                point_valid=point_valid,
-                valid=valid,
-            )
-
         # Analytic signal: zero DC and strictly-negative-frequency bins of the
         # raw (NOT windowed) frame; positive bins are *not* doubled — the 4x
         # one-sided bin normalization accounts for it (processor.rs:546-557).
         # The kept bins 1..h/2 are exactly the one-sided rFFT output, so the
-        # forward transform rides the pair-packed real FFT (half the MXU work
-        # of a complex transform); the upper half is zero by construction.
+        # forward transform rides the pair-packed real FFT (half the work of
+        # a complex transform); the upper half is zero by construction.
         spec = rfft_mxu(frames, h)
         keep = (np.arange(h // 2 + 1) >= 1).astype(np.float32)
         zeros_hi = jnp.zeros((*spec.shape[:-1], h - (h // 2 + 1)), jnp.float32)

@@ -7,7 +7,7 @@ state floor lifted by the maximum positive A-weighting so weighting cannot
 resurrect sub-floor bins (processor.rs:325-403); outputs both A-weighted and
 raw dB arrays per trace.
 
-TPU formulation: the ACTIVE traces of all streams run as one
+Batched formulation: the ACTIVE traces of all streams run as one
 ``[S * trace_count]``-lane framing + batched rFFT, where ``trace_count``
 (1 or 2) statically skips ``Channel.NONE`` and duplicate secondaries
 (reference ``active_traces``, processor.rs:174-177) — the default config
@@ -159,12 +159,10 @@ class SpectrumAnalyzer:
     def use_sliding(self) -> bool:
         """Sliding DFT vs direct windowed rFFT, by hop density.
 
-        The slide pays a padded-length transform of the hop delta plus the
-        one-sided mirror reconstruction per hop, so it only wins when many
-        hops share one window.  At the stock spectrum shape (hop = fft/16,
-        cadenced to hop == block) the direct path measures faster on v5e
-        (1.15 vs 1.38 ms/step at S=1024); the spectrogram's hop-64 shapes
-        (fft/hop >= 32) stay sliding.  The cond-held hop > block path keeps
+        The slide pays a ``[hop, bins]`` delta matmul per hop, so it only
+        wins when many hops share one window: the stock spectrum shape
+        (hop = fft/16, cadenced to hop == block) takes the direct transform,
+        while the spectrogram's hop-64 shapes (fft/hop >= 32) slide.  The cond-held hop > block path keeps
         the slide regardless: the direct branch would transform every
         engine hop only to mask the result invalid.
         """
@@ -279,7 +277,9 @@ class SpectrumAnalyzer:
             projections = jnp.broadcast_to(
                 jnp.asarray(cfg.default_projections()), (s, tc, 2)
             )
-        traces = jnp.einsum("sbc,stc->stb", block, projections)  # [S, 2, B]
+        traces = jnp.einsum(
+            "sbc,stc->stb", block, projections, precision=jax.lax.Precision.HIGHEST
+        )  # [S, 2, B]
 
         lane_reset = None
         if reset_mask is not None:
@@ -329,15 +329,7 @@ class SpectrumAnalyzer:
             # smoothing, and the log/A-weight output passes all skip under
             # one scalar cond (ready is global: resets re-align to the hop
             # grid), holding the previous dB outputs in the carry.
-            from openmeters_tpu.ops.pallas_sliding import pallas_enabled
-
-            fused = pallas_enabled() and self._sliding.fused_supported
-
             def slide(sdft):
-                if fused:
-                    return self._sliding.step_fused(
-                        sdft, info, norm, cfg.floor_db, emit_codes=False
-                    )
                 sdft2, p = self._sliding.step(sdft, info)
                 return sdft2, p * norm
 

@@ -8,7 +8,7 @@ and a Pearson-style value clamped to [-1, 1] (processor.rs:38-61); snapshots
 decimate the last ``segment_duration`` seconds to ``target_sample_count``
 (x, y) points, band points scaled by 0.8 (processor.rs:142-181).
 
-TPU formulation: the per-sample EMA collapses into a closed-form block
+Batched formulation: the per-sample EMA collapses into a closed-form block
 update — ``m' = (1-a)^B m + a * sum_i (1-a)^(B-1-i) v_i`` — one dot product
 with a precomputed decay vector per block; the LR4 splitter is a shared
 ``three_band_scan``; histories are right-aligned shift rings with *static*
@@ -105,10 +105,10 @@ class StereometerAnalyzer:
         dvec = (alpha * decay).astype(np.float32)
 
         v = jnp.stack([l * r, l * l, r * r])  # [3, B, S]
-        upd = jnp.einsum("vbs,b->vs", v, dvec)
+        upd = jnp.einsum("vbs,b->vs", v, dvec, precision=jax.lax.Precision.HIGHEST)
         new = moments * total + upd
         if reset is not None:
-            new = jnp.where(reset[None, :], jnp.einsum("vbs,b->vs", v, dvec), new)
+            new = jnp.where(reset[None, :], upd, new)
         return flush_denormal(new)
 
     @staticmethod

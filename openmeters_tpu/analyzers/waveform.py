@@ -11,7 +11,7 @@ windows of 2048/16384 samples @44.1k scaled by rate with gains
 (processor.rs:199-222); non-finite samples are sanitized for the filters and
 break min/max continuity (processor.rs:264-289).
 
-TPU formulation:
+Batched formulation:
 
 - The fractional column phase is *exact integer arithmetic*: the cadence is
   the rational ``p/q`` with ``p = round(scroll*256)``, ``q = round(rate*256)``
@@ -173,7 +173,9 @@ class WaveformAnalyzer:
         p, q = self._pq
         cap = self.cols_cap
 
-        derived = jnp.einsum("sbc,cd->sbd", block.astype(jnp.float32), DERIVED_PROJ)
+        derived = jnp.einsum(
+            "sbc,cd->sbd", block.astype(jnp.float32), DERIVED_PROJ, precision=jax.lax.Precision.HIGHEST
+        )
         fin = jnp.isfinite(derived)  # [S, B, 4]
 
         phase_r = carry["phase_r"]
@@ -222,11 +224,11 @@ class WaveformAnalyzer:
         col_valid = ks[None, :] < e_tot[:, None]
 
         # pending (preview) column lives at per-stream slot e_tot; one-hot
-        # reductions instead of vmap takes (serial per-row loops on TPU)
+        # selections run in full f32 so the selected value stays exact
         pend_slot = jnp.minimum(e_tot, cap - 1)
         slot_oh = (ks[None, :] == pend_slot[:, None]).astype(jnp.float32)
-        pv_min = jnp.einsum("sk,skd->sd", slot_oh, col_min)
-        pv_max = jnp.einsum("sk,skd->sd", slot_oh, col_max)
+        pv_min = jnp.einsum("sk,skd->sd", slot_oh, col_min, precision=jax.lax.Precision.HIGHEST)
+        pv_max = jnp.einsum("sk,skd->sd", slot_oh, col_max, precision=jax.lax.Precision.HIGHEST)
 
         # -- carries: pending min/max and continuity sample --------------------
         in_pend = (col == e_tot[:, None])[:, :, None] & fin  # [S, B, 4]
@@ -253,8 +255,10 @@ class WaveformAnalyzer:
         bnd = (e_tot * q - r64[:, 0] + p - 1) // p - 1
         bnd = jnp.clip(bnd, 0, b - 1)  # [S]
         bnd_oh = (n[None, :] == bnd[:, None]).astype(jnp.float32)
-        bval = jnp.einsum("sb,sbd->sd", bnd_oh, derived)  # [S, 4]
-        bfin = jnp.einsum("sb,sbd->sd", bnd_oh, fin.astype(jnp.float32)) > 0.5
+        bval = jnp.einsum("sb,sbd->sd", bnd_oh, derived, precision=jax.lax.Precision.HIGHEST)  # [S, 4]
+        bfin = jnp.einsum(
+            "sb,sbd->sd", bnd_oh, fin.astype(jnp.float32), precision=jax.lax.Precision.HIGHEST
+        ) > 0.5
         after = n[None, :] > bnd[:, None]  # [S, B]
         bad_after = jnp.any(after[:, :, None] & ~fin, axis=1)
         bad_any = jnp.any(~fin, axis=1)
@@ -339,8 +343,7 @@ class WaveformAnalyzer:
                 (inclusive): new-block prefix + whole-block totals + a suffix
                 of the two ~window-aged ring blocks.  The prefix/suffix sums
                 at the few emission positions run as masked batched matmuls
-                (MXU) — cumsum lowers to a pad-chain and per-row gathers to
-                serial loops on TPU."""
+                in full f32."""
                 a0 = self._block_age(window)
                 m = window - 1 - pos_all  # [S, cap+1] history samples needed
                 idx = jnp.clip(m - a0 * b, 0, 2 * b)
@@ -348,12 +351,12 @@ class WaveformAnalyzer:
                 new_mask = (
                     bidx[None, None, :] <= pos_all[:, :, None]
                 ).astype(jnp.float32)
-                newsum = jnp.einsum("spb,sbl->spl", new_mask, new_vals)
+                newsum = jnp.einsum("spb,sbl->spl", new_mask, new_vals, precision=jax.lax.Precision.HIGHEST)
                 pidx = np.arange(2 * b, dtype=np.int32)
                 pair_mask = (
                     pidx[None, None, :] >= (2 * b - idx)[:, :, None]
                 ).astype(jnp.float32)
-                hist = jnp.einsum("spb,sbl->spl", pair_mask, pair_vals)
+                hist = jnp.einsum("spb,sbl->spl", pair_mask, pair_vals, precision=jax.lax.Precision.HIGHEST)
                 total = newsum + hist + base_tot[:, None, :]  # [S, cap+1, lanes]
                 n_at = jnp.minimum(
                     (count[:, None] + pos_all + 1).astype(jnp.float32), float(window)

@@ -1,4 +1,4 @@
-"""L4 engine: hop scheduler, stream carries, ICI-mesh scale-out.
+"""L4 engine: hop scheduler, stream carries, device-mesh scale-out.
 
 Reference parity: ``src/meter.rs`` (``MeterEngine``/``DspBatcher`` cadence)
 and ``src/visuals/registry.rs`` (``VisualManager`` fan-out + format-generation

@@ -156,7 +156,7 @@ class MeterEngine:
         ``lax.cond`` gating — idle engine hops then touch none of the
         spectrum state, so the ~270 MB of sliding-spectra + held-dB carry
         moves zero bytes on 3 of 4 hops (a ``cond`` identity branch copies
-        its whole payload; see NOTES round 4).
+        its whole payload).
         """
         sp = self.config.spectrum
         if not sp:
@@ -222,7 +222,11 @@ class MeterEngine:
         Returns ``(carry, {name: snapshot})``.
         """
         block = block.astype(jnp.float32)
-        stereo = jnp.einsum("sbc,sct->sbt", block, meta.fold)  # [S, B, 2]
+        # every dot on metered audio runs in full f32 (HIGHEST): a platform
+        # default may be TF32, which keeps ~10 mantissa bits
+        stereo = jnp.einsum(
+            "sbc,sct->sbt", block, meta.fold, precision=jax.lax.Precision.HIGHEST
+        )  # [S, B, 2]
         mid = 0.5 * (stereo[..., 0] + stereo[..., 1])  # [S, B]
 
         new_carry, snaps = {}, {}
@@ -286,7 +290,7 @@ class MeterEngine:
             blocks = jnp.where(keep[..., None, None], blocks, 0.0)
             reset_mask = jnp.any(reset_mask, axis=0)
         stereo = jnp.einsum(
-            "rsbc,sct->srbt", blocks, meta.fold
+            "rsbc,sct->srbt", blocks, meta.fold, precision=jax.lax.Precision.HIGHEST
         ).reshape(s, r * b, 2)
         return analyzer.step(spectrum_carry, stereo, reset_mask=reset_mask)
 

@@ -1,14 +1,14 @@
-"""Stream-parallel scale-out over an ICI device mesh.
+"""Stream-parallel scale-out over a device mesh.
 
 The reference's "distributed layer" is intra-process lock-free rings between
-a PipeWire thread and the GUI thread (SURVEY §2.9).  The TPU-native analogue:
+a PipeWire thread and the GUI thread (SURVEY §2.9).  The batched analogue:
 streams are embarrassingly parallel, so the whole engine step runs SPMD over
 a 1-D ``Mesh`` with every stream-indexed array sharded on that axis — XLA
-inserts **zero collectives** in the hot loop; ICI is used only if a future
-analyzer wants cross-stream reductions.  Multi-host deployments add more
-streams over DCN with no cross-host traffic (pure DP).
+inserts **zero collectives** in the hot loop; the links between cards are
+used only if a future analyzer wants cross-stream reductions.  Multi-host
+deployments add more streams with no cross-host traffic (pure DP).
 
-Works identically on N real TPU chips and on
+Works identically on N GPUs and on
 ``--xla_force_host_platform_device_count=N`` virtual CPU devices (tests).
 """
 
@@ -43,14 +43,14 @@ def make_mesh(n_devices: int | None = None) -> Mesh:
 
 
 def make_multihost_mesh(n_hosts: int, per_host: int) -> Mesh:
-    """2-D ``(dcn, ici)`` mesh: hosts on the outer (DCN) axis, each host's
-    chips on the inner (ICI) axis.
+    """2-D ``(hosts, cards)`` mesh: hosts on the outer axis, each host's
+    cards on the inner axis.
 
     Streams are embarrassingly parallel, so every stream-indexed array
-    shards its leading dim over *both* axes (``P(("dcn", "ici"), ...)`` via
-    ``sharded_step(..., axis=("dcn", "ici"))``) — pure DP means XLA inserts
-    no collective on either fabric; DCN carries only the host->device feed
-    of each host's own stream shard (SURVEY §5.8).
+    shards its leading dim over *both* axes (``P(("hosts", "cards"), ...)`` via
+    ``sharded_step(..., axis=("hosts", "cards"))``) — pure DP means XLA
+    inserts no collective on either axis; the network carries only each
+    host's own feed (SURVEY §5.8).
     """
     devices = jax.devices()
     need = n_hosts * per_host
@@ -60,7 +60,7 @@ def make_multihost_mesh(n_hosts: int, per_host: int) -> Mesh:
             f"{len(devices)} device(s) are available"
         )
     grid = np.asarray(devices[:need]).reshape(n_hosts, per_host)
-    return Mesh(grid, ("dcn", "ici"))
+    return Mesh(grid, ("hosts", "cards"))
 
 
 def _trace_args(engine, s, lead=()):
@@ -164,7 +164,7 @@ def sharded_step(engine, mesh: Mesh, donate_carry: bool = False, axis=STREAM_AXI
 
     Returns ``(step_fn, place_carry)``: ``step_fn(carry, block, meta, reset)``
     with all stream-indexed leaves sharded on ``axis`` (an axis name, or a
-    tuple of mesh axes — e.g. ``("dcn", "ici")`` for a multi-host mesh);
+    tuple of mesh axes — e.g. ``("hosts", "cards")`` for a multi-host mesh);
     ``place_carry`` shards an engine carry pytree onto the mesh.
     ``donate_carry`` donates the carry buffers (serving loops update state
     in place).  Sharded dims must divide evenly by the mesh size.

@@ -7,7 +7,7 @@ media.name > node.name, graph.rs ``StreamIdentity``), remembers identities of
 inactive apps per client, and plans which nodes get tapped subject to a
 truncation limit (policy.rs ``Plan { sources, truncated }``).
 
-The TPU rebuild's capture sources are external producers (sockets, shared
+The batched rebuild's capture sources are external producers (sockets, shared
 memory, files) rather than a PipeWire graph, so the directory keeps the
 *semantics*: stable identity -> batch-slot assignment, remembered identities
 that re-acquire their old slot when they come back (so resets/state carry

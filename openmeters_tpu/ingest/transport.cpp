@@ -11,7 +11,7 @@
 // synthesizes silence when streaming stalls and long silence resets
 // processors (transport.rs:32-37,506-528, meter.rs:145-166).
 //
-// TPU formulation: N independent streams, each with its own SPSC ring and
+// Batched formulation: N independent streams, each with its own SPSC ring and
 // timeline, drained by one or more assembler threads that fill a fixed
 // [n_streams, block_frames, channels] float32 batch per engine hop plus
 // per-stream reset flags — the host half of the device pipeline.  One

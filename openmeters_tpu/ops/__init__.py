@@ -2,7 +2,7 @@
 
 Every op here is a pure jit-safe function over ``[time, lanes...]`` or
 ``[streams, ...]`` arrays with explicit carry state, replacing the reference's
-per-sample stateful Rust structs (``src/dsp.rs``) with TPU-native batched
+per-sample stateful Rust structs (``src/dsp.rs``) with batched
 formulations:
 
 - ``iir``       — biquads / cascades / three-band crossovers as ``lax.scan``

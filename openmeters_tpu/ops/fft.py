@@ -1,18 +1,16 @@
-"""MXU-native FFTs: six-step Cooley–Tukey as batched matmuls.
+"""FFTs as batched matmuls: six-step Cooley–Tukey.
 
-XLA's TPU ``fft`` lowering runs on the VPU at well under 1 TFLOP/s; for the
-hop-rate STFT workloads here (tens of thousands of 1k–16k point transforms
-per hop) the MXU is the right unit.  A length-``N = N1*N2`` DFT decomposes
-into dense ``[N1, N1]`` / ``[N2, N2]`` DFT matmuls plus a twiddle — ~N(N1+N2)
-complex MACs instead of N log N, a >20x FLOP inflation that still wins by
->5x wall-clock because the MXU has ~100x the VPU's throughput.
+A length-``N = N1*N2`` DFT decomposes into dense ``[N1, N1]`` / ``[N2, N2]``
+DFT matmuls plus a twiddle — ~N(N1+N2) complex MACs instead of N log N:
 
     X[k1*N2 + k2] = sum_{n1} W_N1^{n1 k1} * [ W_N^{n1 k2} *
                     sum_{n2} x[n1 + N1*n2] * W_N2^{n2 k2} ]
 
-All factor matrices/twiddles are host-precomputed float32 constants; matmuls
-run at ``Precision.HIGHEST`` (f32-accurate on MXU) — spectral parity tests
-hold the result to ~1e-6 of numpy's f64 FFT.
+All factor matrices/twiddles are host-precomputed float32 constants; the
+matmuls run at ``Precision.HIGHEST`` (full f32, never TF32) — spectral
+parity tests hold the result to ~1e-6 of numpy's f64 FFT.  Whether this
+route or ``jnp.fft`` (cuFFT on the GPU) is faster on a given device is a
+measurement, recorded in PERF.md; the callers use this one route.
 
 Used by the spectrogram/spectrum analyzers for rFFT, complex FFT (Hilbert)
 and inverse FFT.  Shapes are static per config; radix split is chosen
@@ -22,22 +20,10 @@ automatically (balanced halves).
 from __future__ import annotations
 
 import functools
-import os
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-
-# MXU pass count for the DFT matmuls.  HIGHEST (full f32) measures the same
-# analyzer-level speed as HIGH (bf16_3x) on v5e — the hot spots are memory
-# passes, not matmul throughput — while HIGH costs ~45 dB of spectral floor.
-# Keep HIGHEST; override with OPENMETERS_FFT_PRECISION for experiments.
-_PRECISION = {
-    "default": jax.lax.Precision.DEFAULT,
-    "high": jax.lax.Precision.HIGH,
-    "highest": jax.lax.Precision.HIGHEST,
-}[os.environ.get("OPENMETERS_FFT_PRECISION", "highest").lower()]
-
 
 @functools.lru_cache(maxsize=None)
 def _factors(n: int) -> tuple[int, int]:
@@ -64,65 +50,25 @@ def _twiddle(n: int):
     return np.cos(ang).astype(np.float32), (-np.sin(ang)).astype(np.float32)
 
 
-def _mm(x, mat, precision):
-    if precision == "bf16x3":
-        # f32-class accuracy in 3 bf16 MXU passes: hi/lo split of the data
-        # against a pre-split constant matrix (vs HIGHEST's 6 passes).
-        # NOTE: the explicit in-graph split materializes extra HBM-level
-        # arrays and converts — measured a 2.4x REGRESSION on memory-bound
-        # pipelines.  Prefer passing ``jax.lax.Precision.HIGH`` (the same 3
-        # bf16 passes, internal to the MXU pipeline, zero extra traffic).
-        hi, lo = mat
-        xh = x.astype(jnp.bfloat16).astype(jnp.float32)
-        xl = x - xh
-        p = jax.lax.Precision.DEFAULT
-        return (
-            jnp.einsum("...n,nk->...k", xh, hi, precision=p)
-            + jnp.einsum("...n,nk->...k", xh, lo, precision=p)
-            + jnp.einsum("...n,nk->...k", xl, hi, precision=p)
-        )
-    prec = _PRECISION if precision is None else precision
-    return jnp.einsum("...n,nk->...k", x, mat, precision=prec)
+def _mm(x, mat):
+    # full f32: a TF32 transform would floor the spectra near -66 dB
+    return jnp.einsum(
+        "...n,nk->...k", x, mat, precision=jax.lax.Precision.HIGHEST
+    )
 
 
-def _stage(re, im, mat_re, mat_im, precision=None):
+def _stage(re, im, mat_re, mat_im):
     """Complex matmul (re + i*im) @ (mat_re + i*mat_im) over the last axis."""
-    rr = _mm(re, mat_re, precision)
-    ri = _mm(re, mat_im, precision)
+    rr = _mm(re, mat_re)
+    ri = _mm(re, mat_im)
     if im is None:
         return rr, ri
-    ir = _mm(im, mat_re, precision)
-    ii = _mm(im, mat_im, precision)
+    ir = _mm(im, mat_re)
+    ii = _mm(im, mat_im)
     return rr - ii, ri + ir
 
 
-@functools.lru_cache(maxsize=None)
-def _dft_mats_split(n: int):
-    """bf16 hi/lo splits of the DFT matrices for the bf16x3 mode."""
-    import ml_dtypes
-
-    c, s = _dft_mats(n)
-
-    def split(m):
-        hi = m.astype(ml_dtypes.bfloat16).astype(np.float32)
-        return hi, m - hi
-
-    return split(c), split(s)
-
-
-def _slice_rows(mat, rows: int):
-    if isinstance(mat, tuple):  # bf16x3 (hi, lo) split
-        return mat[0][:rows], mat[1][:rows]
-    return mat[:rows]
-
-
-def _slice_cols(mat, cols: int):
-    if isinstance(mat, tuple):
-        return mat[0][:, :cols], mat[1][:, :cols]
-    return mat[:, :cols]
-
-
-def _fft_core(x_re, x_im, n: int, precision=None, in_len=None, out_len=None):
+def _fft_core(x_re, x_im, n: int, in_len=None, out_len=None):
     """Six-step DFT over the last axis.  Returns (re, im).
 
     ``in_len``: inputs beyond this index are known zero (zero-padded
@@ -147,15 +93,11 @@ def _fft_core(x_re, x_im, n: int, precision=None, in_len=None, out_len=None):
         else jnp.swapaxes(x_im.reshape(*batch, n2_cap, n1), -1, -2)
     )
 
-    if precision == "bf16x3":
-        f2_re, f2_im = _dft_mats_split(n2)
-        f1_re, f1_im = _dft_mats_split(n1)
-    else:
-        f2_re, f2_im = _dft_mats(n2)
-        f1_re, f1_im = _dft_mats(n1)
+    f2_re, f2_im = _dft_mats(n2)
+    f1_re, f1_im = _dft_mats(n1)
     if n2_cap < n2:
-        f2_re, f2_im = _slice_rows(f2_re, n2_cap), _slice_rows(f2_im, n2_cap)
-    b_re, b_im = _stage(a_re, a_im, f2_re, f2_im, precision)  # [.., n1, n2(k2)]
+        f2_re, f2_im = f2_re[:n2_cap], f2_im[:n2_cap]
+    b_re, b_im = _stage(a_re, a_im, f2_re, f2_im)  # [.., n1, n2(k2)]
 
     tw_re, tw_im = _twiddle(n)
     c_re = b_re * tw_re - b_im * tw_im
@@ -164,12 +106,12 @@ def _fft_core(x_re, x_im, n: int, precision=None, in_len=None, out_len=None):
     k1_cap = n1
     if out_len is not None and out_len < n:
         k1_cap = -(-int(out_len) // n2)
-        f1_re, f1_im = _slice_cols(f1_re, k1_cap), _slice_cols(f1_im, k1_cap)
+        f1_re, f1_im = f1_re[:, :k1_cap], f1_im[:, :k1_cap]
 
     # D[k2, k1] = sum_n1 C[n1, k2] F1[n1, k1]
     c_re = jnp.swapaxes(c_re, -1, -2)  # [.., k2, n1]
     c_im = jnp.swapaxes(c_im, -1, -2)
-    d_re, d_im = _stage(c_re, c_im, f1_re, f1_im, precision)  # [.., k2, k1]
+    d_re, d_im = _stage(c_re, c_im, f1_re, f1_im)  # [.., k2, k1]
 
     # X[k1*N2 + k2] <- D[k2, k1]
     x_re_out = jnp.swapaxes(d_re, -1, -2).reshape(*batch, k1_cap * n2)
@@ -192,7 +134,7 @@ def _half_twiddle(n: int):
     return np.cos(ang).astype(np.float32), (-np.sin(ang)).astype(np.float32)
 
 
-def rfft_mxu(x, n: int | None = None, precision=None, in_len=None):
+def rfft_mxu(x, n: int | None = None, in_len=None):
     """Real-input FFT -> complex one-sided spectrum ``[..., n//2+1]``.
 
     Pads/truncates the last axis to ``n`` like ``jnp.fft.rfft(x, n)``.
@@ -203,7 +145,7 @@ def rfft_mxu(x, n: int | None = None, precision=None, in_len=None):
 
     Each real row SELF-PACKS into a half-size complex transform
     (z[m] = x[2m] + i·x[2m+1]; the DIT unpack recovers the one-sided
-    spectrum): ~1.5x fewer MXU MACs than pairing two rows into a full-size
+    spectrum): ~1.5x fewer MACs than pairing two rows into a full-size
     transform, no cross-row pack/unpack reshapes, and the hermitian
     bookkeeping shrinks to the half spectrum.
     """
@@ -224,7 +166,7 @@ def rfft_mxu(x, n: int | None = None, precision=None, in_len=None):
     pairs = x.reshape(*batch_shape, h, 2)
     ze, zo = pairs[..., 0], pairs[..., 1]
     h_in = None if in_len is None else -(-int(in_len) // 2)
-    zr, zi = _fft_core(ze, zo, h, precision, in_len=h_in)  # Z = FFT_h(z)
+    zr, zi = _fft_core(ze, zo, h, in_len=h_in)  # Z = FFT_h(z)
 
     # E[k] = (Z[k] + conj(Z[h-k]))/2 (FFT of evens), O[k] likewise for odds;
     # S[k] = E[k] + W_n^k·O[k] over k = 0..h (Z[h] := Z[0])
@@ -242,7 +184,7 @@ def rfft_mxu(x, n: int | None = None, precision=None, in_len=None):
     return jax.lax.complex(s_re, s_im)
 
 
-def fft_mxu(re, im, n: int | None = None, precision=None):
+def fft_mxu(re, im, n: int | None = None):
     """Complex FFT over the last axis; takes/returns (re, im) float32 pairs."""
     n = n or re.shape[-1]
     if not _is_pow2(n):
@@ -253,10 +195,10 @@ def fft_mxu(re, im, n: int | None = None, precision=None):
         return jnp.real(out), jnp.imag(out)
     re = _pad_last(re.astype(jnp.float32), n)
     im = _pad_last(im.astype(jnp.float32), n) if im is not None else None
-    return _fft_core(re, im, n, precision)
+    return _fft_core(re, im, n)
 
 
-def ifft_mxu(re, im, n: int | None = None, precision=None, out_len=None):
+def ifft_mxu(re, im, n: int | None = None, out_len=None):
     """Normalized inverse complex FFT via conjugation: ifft(z) = conj(fft(conj(z)))/n.
 
     ``out_len``: only outputs ``[0, out_len)`` are needed — skips the
@@ -268,19 +210,19 @@ def ifft_mxu(re, im, n: int | None = None, precision=None, out_len=None):
             out = out[..., :out_len]
         return jnp.real(out), jnp.imag(out)
     fr, fi = _fft_core(
-        _pad_last(re, n), -_pad_last(im, n), n, precision, out_len=out_len
+        _pad_last(re, n), -_pad_last(im, n), n, out_len=out_len
     )
     inv = 1.0 / n
     return fr * inv, -fi * inv
 
 
-def irfft_mxu(spec_re, spec_im, n: int, precision=None, out_len=None):
+def irfft_mxu(spec_re, spec_im, n: int, out_len=None):
     """Inverse of :func:`rfft_mxu`: one-sided ``[..., n//2+1]`` (re, im) ->
     real ``[..., n]`` (or ``[..., out_len]``).
 
     Each row SELF-PACKS into a half-size complex inverse (the DIT unpack run
     backwards: Z[k] = E[k] + i·W_n^{-k}·(S[k]-conj(S[h-k]))/2, w = IFFT_h(Z),
-    y[2m] = Re w[m], y[2m+1] = Im w[m]) — ~1.5x fewer MXU MACs than the
+    y[2m] = Re w[m], y[2m+1] = Im w[m]) — ~1.5x fewer MACs than the
     full-size mirror + cross-row pairing, and no full-spectrum reverse.
     ``out_len`` skips second-stage matmul columns for callers that only read
     a prefix (autocorrelation lags, search offsets).
@@ -309,7 +251,7 @@ def irfft_mxu(spec_re, spec_im, n: int, precision=None, out_len=None):
     o_im = d_im * wc - d_re * ws
     z_re = e_re - o_im  # Z = E + i·O
     z_im = e_im + o_re
-    wr, wi = ifft_mxu(z_re, z_im, h, precision, out_len=h_out)
+    wr, wi = ifft_mxu(z_re, z_im, h, out_len=h_out)
     out = jnp.stack([wr, wi], axis=-1).reshape(*z_re.shape[:-1], 2 * h_out)
     return out[..., :out_n] if out_n < 2 * h_out else out
 

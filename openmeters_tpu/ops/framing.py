@@ -8,12 +8,12 @@ the timeline by ``hop`` samples; hops larger than the buffer produce a
 pending-skip debt (``pending_skip_samples``) so output is block-partition
 independent.
 
-TPU formulation: a **double-written rotating ring** ``[lanes, 2 * cap]``
+Batched formulation: a **double-written rotating ring** ``[lanes, 2 * cap]``
 with a *global* scalar write origin shared by all lanes.  Every ingested
 block is written twice — at ``origin`` and ``origin + cap`` — so any
 window of length <= cap is contiguous somewhere in the buffer and every
-read stays one cheap scalar-offset ``lax.dynamic_slice`` (contiguous,
-TPU-friendly) instead of a per-lane gather.  Writing 2*B samples per step
+read stays one cheap scalar-offset ``lax.dynamic_slice`` (contiguous)
+instead of a per-lane gather.  Writing 2*B samples per step
 replaces the previous shift-left ring's O(cap) read+write of the whole
 buffer (~150 MB/step at 16k streams) with O(B) stores that XLA aliases
 in-place in the scan carry.

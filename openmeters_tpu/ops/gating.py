@@ -4,7 +4,7 @@ streaming, batched over streams.
 The reference omits gating entirely (no gate in
 ``src/visuals/loudness/processor.rs``); BASELINE.json's north star demands
 it.  The formulation is libebur128-style streaming histograms, reshaped for
-fixed-shape TPU carries:
+fixed-shape device carries:
 
 - The gating cadence is 100 ms chunks (``0.1 * rate`` frames — exactly
   ``18.75`` engine hops at any rate, since hops scale with rate too).  A hop

@@ -4,11 +4,9 @@ Reference parity: ``Biquad``/``Cascade``/``ThreeBand`` in ``src/dsp.rs:373-504``
 and the 5-tap K-weighting direct-form-II-transposed filter in
 ``src/visuals/loudness/processor.rs:153-162``.
 
-TPU formulation: recursion runs as one ``lax.scan`` over the time axis whose
-body evaluates *all* sections on ``[lanes...]`` vectors — sequential in time,
-fully vectorized across streams/channels.  With thousands of streams the VPU
-is saturated per step, so the scan costs microseconds per 256-sample hop;
-precision matches the sequential reference (no associative-scan reordering).
+Batched formulation: recursion runs as one ``lax.scan`` over the time axis
+whose body evaluates *all* sections on ``[lanes...]`` vectors — sequential
+in time, fully vectorized across streams/channels; precision matches the sequential reference (no associative-scan reordering).
 
 Coefficients are host-side numpy float64 cast at trace time; they are static
 per (sample_rate, config) bucket, exactly like the reference's rebuilt-on-
@@ -265,16 +263,12 @@ def _three_band_lifted_mats(sample_rate: float, splits, cascade_n: int,
 def three_band_lifted(x, state, sample_rate: float, splits=(200.0, 2000.0),
                       cascade_n: int = 1, cascade_high: bool = False,
                       lift: int = 32):
-    """:func:`three_band_scan` via L-sample lifted blocks on the MXU.
+    """:func:`three_band_scan` via L-sample lifted blocks (matmuls).
 
     Identical LTI response to the sequential scan (f32 rounding), with the
-    256-step serial recurrence collapsed to ``T/L`` block steps.  MEASURED
-    NEGATIVE on v5e at serving shapes (r5): stereometer+waveform at S=1024
-    ran 1.34 ms/step sequential vs 1.46 ms lifted — the lifted path's
-    [10-20]-row einsums are overhead-bound while XLA fuses the unrolled
-    sequential chunks into large VPU fusions.  Kept as the documented
-    alternative (and for hosts where serial latency dominates); the
-    analyzers default to :func:`three_band_scan`.  Semantics deviation: the
+    256-step serial recurrence collapsed to ``T/L`` block steps.  The
+    analyzers use :func:`three_band_scan`; which of the two is faster on
+    the GPU is not measured yet (ROADMAP G3).  Semantics deviation: the
     per-sample non-finite OUTPUT state reset (dsp.rs:426-431) is replaced
     by non-finite INPUT sanitization to 0 plus a post-block state flush —
     the transport already NaN-sanitizes the production path, so the two
@@ -339,7 +333,7 @@ def flush_denormal_state(state, threshold: float = 1.0e-20):
 # the per-sample recurrence into one affine map per L-block:
 #   Y_blk = G s + H X_blk        (G [L, n],  H [L, L] lower-triangular)
 #   s'    = F s + K X_blk        (F = A^L,   K = [A^(L-1) B ... B])
-# computed on the MXU.  All matrices are built host-side in float64, so the
+# computed as matmuls.  All matrices are built host-side in float64, so the
 # lifted path matches the sequential scan to f32 rounding while cutting the
 # scan length (and its per-step dispatch overhead) by L.
 

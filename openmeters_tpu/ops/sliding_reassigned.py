@@ -2,11 +2,10 @@
 
 The reference's reassigned transform (spectrogram/processor.rs:439-608) per
 column: Hilbert over ``h = 2n`` raw samples, crop the center ``n``, three
-windowed FFTs (h, dh/dt, (t-c)h), per-bin corrections.  The round-2 fused
-Pallas kernel (ops/pallas_reassigned.py) computes exactly that chain per
-column — ~16 ms/step at the stock 2048/64 config and 4096 streams, 5x off
-realtime, because at hop 64 consecutive columns share 97% of their windows
-and the per-column FFT chain recomputes all of it.
+windowed FFTs (h, dh/dt, (t-c)h), per-bin corrections.  The per-column path
+(``SpectrogramAnalyzer._reassigned``) computes exactly that chain per
+column; at hop 64 consecutive columns share 97% of their windows and the
+per-column FFT chain recomputes all of it.
 
 This module restructures the computation around streaming state, the same
 move that made the classic path fast (ops/sliding_stft.py):
@@ -38,7 +37,7 @@ move that made the classic path fast (ops/sliding_stft.py):
    U; the derivative window's exact stencil DW[+-j] = +-i*pi*j*c_j), and
    the corrections are the reference's ratios.
 
-Exact MXU-FFT re-anchoring every ``refresh_steps`` engine steps bounds f32
+Exact FFT re-anchoring every ``refresh_steps`` engine steps bounds f32
 drift exactly like the classic sliding path.
 
 Differences vs the reference's per-column circular Hilbert (both are
@@ -54,7 +53,6 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-import os
 
 import jax
 import jax.numpy as jnp
@@ -84,9 +82,8 @@ class SlidingReassigned:
     # under padding.
     zpf: int = 1
     # exact re-anchor cadence: f32 slide drift is ~1e-6 relative per 8
-    # hops (NOTES r2) — at 32 it stays ~4e-6, orders below the physics
-    # bars (2 Hz / 1e-4 hop / 1%), and the amortized exact-FFT cond cost
-    # drops 4x (measured 0.75 -> 0.19 ms/step at S=8192)
+    # hops — at 32 it stays ~4e-6, orders below the physics bars (2 Hz /
+    # 1e-4 hop / 1%), and the amortized exact-FFT cond cost drops 4x
     refresh_steps: int = 32
 
     @property
@@ -221,7 +218,7 @@ class SlidingReassigned:
     def _hilbert_matrix(self):
         """Toeplitz matrix turning the newest ``block + 2*K`` raw samples
         into ``block`` Hilbert-transform samples lagging ``margin`` behind:
-        one MXU matmul replaces the overlap-save FFT/IFFT chain (same
+        one matmul replaces the overlap-save FFT/IFFT chain (same
         approximation class: the ideal Hilbert kernel 2/(pi t) truncated at
         +-K with a Blackman taper ~ the FFT method's segment-boundary
         error at the same distance)."""
@@ -261,13 +258,11 @@ class SlidingReassigned:
         x_win = jax.lax.dynamic_slice(
             buf, (jnp.int32(0), seg_start), (buf.shape[0], win)
         )
-        # HIGH: the FIR Hilbert approximation's own truncation error
-        # (~1/(pi*margin)) dominates bf16x3 rounding by orders of
-        # magnitude, and every consumer is a spectra RATIO with loose
-        # physics bars (2 Hz / 1e-4 hop / 1%)
+        # full f32: TF32 rounding (~2^-11) would sit at the same order as
+        # the FIR approximation's own truncation error (~1/(pi*margin))
         emit = jnp.einsum(
             "sw,wb->sb", x_win, jnp.asarray(self._hilbert_matrix()),
-            precision=jax.lax.Precision.HIGH,
+            precision=jax.lax.Precision.HIGHEST,
         )
         e0 = (info["origin_next"] - self.margin - b) % cap
         hx = jax.lax.dynamic_update_slice(state["hx"], emit, (jnp.int32(0), e0))
@@ -459,100 +454,6 @@ class SlidingReassigned:
             & (ready > 0)
             & warm
         )
-
-        from openmeters_tpu.ops.pallas_sliding import _interpret, pallas_enabled
-
-        use_fused = (
-            (pallas_enabled() or _interpret())
-            and os.environ.get("OPENMETERS_PALLAS_REASSIGNED", "1") != "0"
-        )
-
-        if use_fused:
-            from openmeters_tpu.ops.pallas_sliding_reassigned import (
-                reassigned_sliding_hop,
-            )
-
-            hop, n_, c0 = self.hop, self.n, self.center
-            dxs, dhs = [], []
-            for k in range(fb.cols_cap):
-                prev = c0 + (k - 1) * hop
-                dxs.append(
-                    jnp.concatenate(
-                        [fb.slice(info, prev + n_, hop), fb.slice(info, prev, hop)],
-                        axis=-1,
-                    )
-                )
-                dhs.append(
-                    jnp.concatenate(
-                        [
-                            self._hx_slice(hx, info, prev + n_, hop),
-                            self._hx_slice(hx, info, prev, hop),
-                        ],
-                        axis=-1,
-                    )
-                )
-            dx = jnp.stack(dxs, axis=1)
-            dh = jnp.stack(dhs, axis=1)
-            st8 = tuple(state[k] for k in _STATE_KEYS)
-
-            def substitute(_):
-                # affine carry substitution: make the branch-free kernel's
-                # column 0 land exactly on freshly computed spectra
-                ex = self._exact_states(info, hx, jnp.asarray(ramp))
-                prec = jax.lax.Precision.HIGHEST
-                b = self.bins
-
-                def split4(d):
-                    out = jnp.einsum("sj,jb->sb", d, upd, precision=prec)
-                    return (
-                        out[:, :b], out[:, b : 2 * b],
-                        out[:, 2 * b : 3 * b], out[:, 3 * b :],
-                    )
-
-                dUxr, dUxi, dVxr, dVxi = split4(dx[:, 0])
-                dUhr, dUhi, dVhr, dVhi = split4(dh[:, 0])
-
-                def unrot(re, im):  # conj(rot) * z
-                    return re * rot_r + im * rot_i, im * rot_r - re * rot_i
-
-                uxr, uxi = unrot(ex["uxr"], ex["uxi"])
-                uhr, uhi = unrot(ex["uhr"], ex["uhi"])
-                vxr, vxi = unrot(ex["vxr"], ex["vxi"])
-                vhr, vhi = unrot(ex["vhr"], ex["vhi"])
-                uxr, uxi = uxr - dUxr, uxi - dUxi
-                uhr, uhi = uhr - dUhr, uhi - dUhi
-                return (
-                    uxr, uxi, uhr, uhi,
-                    vxr + hop * uxr - dVxr, vxi + hop * uxi - dVxi,
-                    vhr + hop * uhr - dVhr, vhi + hop * uhi - dVhi,
-                )
-
-            st_in = jax.lax.cond(refresh, substitute, lambda _: st8, None)
-            new8, f_out, t_out, p_out = reassigned_sliding_hop(
-                ready, st_in, dx, dh, jnp.asarray(upd),
-                rot_r[None], rot_i[None],
-                (0.25 * consts["norm"])[None], consts["freq_base"][None],
-                cols=fb.cols_cap, hop=hop, bins=self.bins, n=n_,
-                zpf=self.zpf, coeffs=self._stencil_coeffs(),
-                inv_2pi=float(consts["inv_2pi"]),
-                inv_hop=float(consts["inv_hop"]),
-                latency_hops=float(consts["latency_hops"]),
-            )
-            new_state = dict(zip(_STATE_KEYS, new8))
-            new_state["hx"] = hx
-            new_state["count"] = count + 1
-            new_state["anchored"] = (state["anchored"] | refresh) & warm
-            new_state["hx_avail"] = hx_avail
-            k = jnp.arange(fb.cols_cap, dtype=jnp.int32)
-            tail = jnp.maximum((ready - 1 - k) * self.hop, 0)
-            need = self.h + self.extra_fresh + tail
-            valid = (
-                (k[None, :] < ready)
-                & (info["fresh"][:, None] >= need[None, :])
-                & warm
-                & new_state["anchored"]
-            )
-            return new_state, (f_out, t_out, p_out, valid)
 
         st = {k: state[k] for k in _STATE_KEYS}
         # column 0: exact re-anchor under a scalar cond, else slide

@@ -12,7 +12,7 @@ Windowing happens *in the frequency domain*: a cosine-sum window w[m] =
 sum_j a_j cos(2 pi j m / N) is the stencil  a_0 F[k] + sum_j a_j/2
 (F[k-j] + F[k+j])  with hermitian edge reflection (real input), and DC
 removal subtracts mean * W[k] at the stencil bins only.  Slides are exact
-relative updates; an exact MXU-FFT re-anchor every ``refresh_steps`` engine
+relative updates; an exact FFT re-anchor every ``refresh_steps`` engine
 steps bounds f32 drift far below the spectrogram's 0.0024 dB u16 code step.
 
 Shared by the classic spectrogram and the spectrum analyzer.
@@ -52,39 +52,21 @@ class SlidingSTFT:
 
     @property
     def fused_supported(self) -> bool:
-        """Configs whose ``[hop, bins]`` delta-DFT constants fit scoped
-        VMEM ride the whole-row kernel; larger ones (the stock 16384/1024
-        spectrum) use the bin-tiled grid (ops/pallas_sliding.py)."""
-        from openmeters_tpu.ops.pallas_sliding import fused_supported
+        """Shapes the fused GPU hop (ops/sliding_kernel.py) handles."""
+        from openmeters_tpu.ops.sliding_kernel import kernel_supported
 
-        return fused_supported(self.hop, self.bins)
+        return self.supported and kernel_supported(
+            self.hop, self.bins, len(self._stencil())
+        )
 
     @property
     def frames(self) -> FrameBuffer:
         return FrameBuffer(self.fft_size, self.hop, self.block)
 
-    @property
-    def store_bins(self) -> int:
-        """Carry lane width of the sliding state.  Big-FFT fused configs
-        store it padded to the kernel's bin-tile grid so steady-state hops
-        move no pad copies (the S=8192 spectrum OOM'd on per-hop pads)."""
-        from openmeters_tpu.ops.pallas_sliding import (
-            BIN_TILE, fits_vmem, pallas_enabled,
-        )
-
-        if (
-            pallas_enabled()
-            and self.supported
-            and self.fused_supported
-            and not fits_vmem(self.hop, self.bins)
-        ):
-            return -(-self.bins // BIN_TILE) * BIN_TILE
-        return self.bins
-
     def init(self, lanes: int) -> dict:
         return {
-            "re": jnp.zeros((lanes, self.store_bins), jnp.float32),
-            "im": jnp.zeros((lanes, self.store_bins), jnp.float32),
+            "re": jnp.zeros((lanes, self.bins), jnp.float32),
+            "im": jnp.zeros((lanes, self.bins), jnp.float32),
             "count": jnp.zeros((), jnp.int32),
             "anchored": jnp.zeros((), bool),
         }
@@ -129,9 +111,9 @@ class SlidingSTFT:
         return corr
 
     def step_fused(self, sdft: dict, info: dict, norm, floor_db: float,
-                   emit_codes: bool):
-        """Fused Pallas hop (ops/pallas_sliding.py): slide + window + power
-        (+ optional dB/u16 pack) in one kernel, state resident in VMEM.
+                   interpret: bool = False):
+        """Fused GPU hop (ops/sliding_kernel.py): slide + window + power +
+        dB/u16 pack in one kernel.  Returns ``(new_sdft, codes)``.
 
         The periodic exact re-anchor happens *before* the kernel as an
         algebraic carry substitution: the kernel's col-0 slide is affine
@@ -139,9 +121,7 @@ class SlidingSTFT:
         ``f' = conj(rot) * F0_exact - d0`` makes the kernel land exactly on
         the freshly computed spectrum — the kernel stays branch-free.
         """
-        import jax as _jax
-
-        from openmeters_tpu.ops.pallas_sliding import sliding_hop
+        from openmeters_tpu.ops.sliding_kernel import sliding_hop
 
         fb = self.frames
         n, h = self.fft_size, self.hop
@@ -161,36 +141,27 @@ class SlidingSTFT:
             ],
             axis=1,
         )  # [S, cols, h]
-
-        spad = self.store_bins - self.bins
+        # every column's delta spectrum in one batched dot (full f32)
+        dr = jnp.einsum("sch,hb->scb", deltas, upd_r, precision=prec)
+        di = jnp.einsum("sch,hb->scb", deltas, upd_i, precision=prec)
 
         def reanchor(_):
             spec = rfft_mxu(fb.slice(info, 0, n), n)
             sr, si = jnp.real(spec), jnp.imag(spec)
             tr = sr * rot_r + si * rot_i  # F0 * conj(rot)
             ti = si * rot_r - sr * rot_i
-            d0 = deltas[:, 0]
-            dr = jnp.einsum("sh,hb->sb", d0, upd_r, precision=prec)
-            di = jnp.einsum("sh,hb->sb", d0, upd_i, precision=prec)
-            fr0, fi0 = tr - dr, ti - di
-            if spad:  # padded store: re-pad only on re-anchor hops
-                fr0 = jnp.pad(fr0, ((0, 0), (0, spad)))
-                fi0 = jnp.pad(fi0, ((0, 0), (0, spad)))
-            return fr0, fi0
+            return tr - dr[:, 0], ti - di[:, 0]
 
-        fr, fi = _jax.lax.cond(
+        fr, fi = jax.lax.cond(
             refresh, reanchor, lambda _: (sdft["re"], sdft["im"]), None
         )
-
-        coeffs = tuple(float(a) for a in self._stencil())
-        fr2, fi2, out = sliding_hop(
-            ready, fr, fi, deltas,
-            jnp.asarray(upd_r), jnp.asarray(upd_i),
-            jnp.asarray(rot_r)[None], jnp.asarray(rot_i)[None],
-            jnp.asarray(self._dc_corr_vector())[None],
-            jnp.asarray(norm, jnp.float32).reshape(1, -1),
-            cols=fb.cols_cap, hop=h, bins=self.bins, n=n, coeffs=coeffs,
-            floor_db=float(floor_db), emit_codes=emit_codes,
+        fr2, fi2, codes = sliding_hop(
+            ready, fr, fi, dr, di,
+            jnp.asarray(rot_r), jnp.asarray(rot_i),
+            jnp.asarray(self._dc_corr_vector()),
+            jnp.asarray(norm, jnp.float32).reshape(-1),
+            n=n, coeffs=tuple(float(a) for a in self._stencil()),
+            floor_db=float(floor_db), interpret=interpret,
         )
         new_sdft = {
             "re": fr2,
@@ -198,7 +169,7 @@ class SlidingSTFT:
             "count": count + 1,
             "anchored": sdft["anchored"] | refresh,
         }
-        return new_sdft, out
+        return new_sdft, codes
 
     def step(self, sdft: dict, info: dict):
         """Produce windowed, DC-removed power columns for this engine hop.
@@ -230,10 +201,7 @@ class SlidingSTFT:
             spec = rfft_mxu(fb.slice(info, 0, n), n)
             return jnp.real(spec), jnp.imag(spec)
 
-        # the carry may be stored padded to the fused kernel's tile grid
-        # (store_bins); this XLA path computes at true bins and re-pads
-        spad = sdft["re"].shape[1] - self.bins
-        fr, fi = sdft["re"][:, : self.bins], sdft["im"][:, : self.bins]
+        fr, fi = sdft["re"], sdft["im"]
         f0 = slide(fr, fi, 0)
         f0r, f0i = jax.lax.cond(refresh, exact_col0, lambda _: f0, None)
 
@@ -249,9 +217,6 @@ class SlidingSTFT:
             wr = wr - mean * dc_corr
             cols.append(wr * wr + wi * wi)
 
-        if spad:
-            cur_r = jnp.pad(cur_r, ((0, 0), (0, spad)))
-            cur_i = jnp.pad(cur_i, ((0, 0), (0, spad)))
         new_sdft = {
             "re": cur_r,
             "im": cur_i,

@@ -6,10 +6,10 @@ The 49-tap Hann-windowed sinc interpolator has zero-valued endpoints leaving
 192 kHz (24-tap x 1 phase), sample-peak passthrough above.  Integer phases
 are covered by the plain sample peak.
 
-TPU formulation: the per-sample circular delay line becomes a small carry of
+Batched formulation: the per-sample circular delay line becomes a small carry of
 the last ``D-1`` samples; each block evaluates the FIR as ``D`` shifted
-multiply-adds over ``[T, lanes...]`` (XLA fuses these into a handful of VPU
-passes), then reduces the block peak.
+multiply-adds over ``[T, lanes...]`` (XLA fuses these into a handful of
+elementwise passes), then reduces the block peak.
 """
 
 from __future__ import annotations
@@ -92,11 +92,6 @@ class TruePeakKernel:
             carry = jnp.where(reset_mask, 0.0, carry)
         d = self.delay
 
-        # A fused Pallas kernel for this FIR beat the shifted-pass XLA form
-        # in isolation but lost fused into the loudness graph (2.56 -> 3.04
-        # ms/step on v5e — the same custom-call layout trap as the
-        # K-weighting kernel; layout pinning made it worse).  Deleted in
-        # round 3 — see NOTES.md.
         taps = polyphase_taps(self.factor)
         xx = jnp.concatenate([carry, x], axis=0)  # [T + D - 1, lanes...]
         # y_p[n] = sum_i x[n - i] * taps[i, p]; x[n - i] == xx[D - 1 + n - i].

@@ -4,7 +4,7 @@ Reference parity: ``WindowedMeans`` / ``CompensatedPair`` in
 ``src/dsp.rs:264-371`` — Kahan-Babuska-Neumaier compensated running means over
 multiple window lengths sharing one sample ring.
 
-TPU formulation: the reference pushes per-sample into f64 compensated sums
+Batched formulation: the reference pushes per-sample into f64 compensated sums
 and periodically refreshes dual accumulators to kill drift.  Here samples
 arrive in fixed ``block_frames`` blocks and means are only read at block
 boundaries (exactly how the loudness processor consumes them), so we keep a

@@ -9,10 +9,9 @@ dB codes per fragment (classic) or additively accumulates reassigned point
 splats then resolves power→dB→palette.  This module re-implements those
 *semantics* on the CPU — same coverage math, same color/palette/dB mapping,
 same per-visual geometry constants — producing premultiplied-RGBA frames and
-PNG files with zero GPU or windowing dependencies.  TPU-first split: device
-compute stays in the analyzers; rendering is a host-side view concern, so a
-vectorized numpy rasterizer (not a Pallas kernel) is the idiomatic home for
-it.
+PNG files with zero GPU or windowing dependencies.  Device compute stays in
+the analyzers; rendering is a host-side view concern, so a vectorized numpy
+rasterizer is the idiomatic home for it.
 
 PNG I/O is a minimal stdlib implementation (zlib + struct, 8-bit RGB/RGBA,
 filter 0) so the renderer works in this hermetic environment.

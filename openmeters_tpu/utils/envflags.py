@@ -7,10 +7,11 @@ mid-process env change would apply to some cached traces and not others.
 This module is the one sanctioned way to read such a flag — an
 ``lru_cache``'d snapshot, with a test-only reset hook.
 
-Flags that are read host-side at *config/build* time (e.g. the Pallas
-enable/interpret switches, consulted when an analyzer object is
-constructed) may stay dynamic so tests can exercise both paths in one
-process; they are listed in README.md alongside the snapshot flags.
+Flags that are read host-side at *config/build* time (e.g. the sliding
+reassigned path switch, consulted when an analyzer object is constructed)
+may stay dynamic so tests can exercise both paths in one process; they are
+listed in README.md alongside the snapshot flags.  No flag selects a
+kernel or a precision: those follow from the platform and the shapes.
 """
 
 from __future__ import annotations

@@ -2,7 +2,7 @@
 
 Straightforward per-sample numpy re-derivations of the textbook algorithms
 (DF2T biquads, BS.1770 K-weighting, libebur128 polyphase true peak, trailing
-window means) used to validate the batched TPU formulations.
+window means) used to validate the batched formulations.
 """
 
 from __future__ import annotations

@@ -115,7 +115,7 @@ def test_sharded_step_on_virtual_mesh():
 
 
 def test_multihost_mesh_shards_without_collectives():
-    """The multi-host story (SURVEY §5.8): a 2x4 (dcn, ici) mesh with stream
+    """The multi-host story (SURVEY §5.8): a 2x4 (hosts, cards) mesh with stream
     arrays sharded over BOTH axes.  Pure DP over independent streams means
     the compiled step must contain no collective on either fabric — asserted
     on the optimized HLO, not just claimed."""
@@ -123,7 +123,7 @@ def test_multihost_mesh_shards_without_collectives():
     assert mesh.devices.shape == (2, 4)
     eng = MeterEngine(EngineConfig())
     s, b = 16, 256
-    step, place = sharded_step(eng, mesh, axis=("dcn", "ici"))
+    step, place = sharded_step(eng, mesh, axis=("hosts", "cards"))
     carry = place(eng.init(s))
     meta = StreamMeta.default(s)
     block = np.zeros((s, b, 8), np.float32)

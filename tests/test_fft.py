@@ -1,4 +1,4 @@
-"""MXU matmul-FFT correctness vs numpy float64 FFT."""
+"""Matmul-FFT correctness vs numpy float64 FFT."""
 
 import numpy as np
 import pytest
@@ -38,7 +38,7 @@ def test_complex_fft_and_inverse_roundtrip(rng):
 
 def test_spectral_error_at_f32_floor(rng):
     """Spectral parity bar (BASELINE.md <=-100 dB vs the f32 Rust CPU path):
-    the MXU FFT must match an exact f64 FFT to within the float32
+    the matmul FFT must match an exact f64 FFT to within the float32
     *representational* floor — i.e. be as accurate as any f32 pipeline
     (including the reference's rustfft f32 path) can be.  Measured on a test
     tone the error is ~-89 dB, within 2x of rounding the exact spectrum to
@@ -77,7 +77,7 @@ def test_spectral_parity_vs_f32_reference_path():
     frame -> realfft f32); its semantics are reproduced here with scipy's
     f32 rfft (complex64 transform).  Spectral error is the standard
     amplitude metric: max |A_ours - A_ref| / max |A_ref| in 20*log10 dB.
-    Measured: -141 dB on v5e MXU (HIGHEST), -136 dB on the CPU test mesh.
+    The card's figure is printed by ``chip_smoke.py`` (PERF.md).
     (A *power-difference* metric saturates near -70 dB for ANY pair of f32
     pipelines - even the reference against itself recomputed - because
     |p1-p2| ~ 2*a*da; the -100 dB bar is only meaningful in amplitude.)

@@ -240,14 +240,21 @@ def test_threaded_producers_and_assembler():
     for t in threads:
         t.start()
 
+    import time
+
     got = np.zeros(n_streams, np.int64)
-    deadline = 200
-    while got.min() < blocks * b and deadline > 0:
+    deadline = time.monotonic() + 30.0
+    while got.min() < blocks * b and time.monotonic() < deadline:
+        # assemble on the hop cadence of real data: a hop with nothing
+        # buffered is an underrun, and its synthesized silence would move
+        # the stream's timeline past the producers' next timestamps
+        if min(tp.buffered_frames(s) for s in range(n_streams)) < b:
+            time.sleep(0.0005)
+            continue
         batch, reset, underrun, live = tp.assemble()
         for s in range(n_streams):
             filled = np.count_nonzero(batch[s, :, 0] == (s + 1) / 10)
             got[s] += filled
-        deadline -= 1
     stop.set()
     for t in threads:
         t.join()

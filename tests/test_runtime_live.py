@@ -4,7 +4,7 @@ Unix socket driving the transport under churn.
 The reference's answer to "multi-node without a cluster" is to spawn the
 real middleware in isolation (live_tests.rs:153-342: private PipeWire +
 WirePlumber + audiotestsrc fixtures, then graph-invariant gauntlets).  The
-TPU rebuild's middleware boundary is the SessionRuntime socket protocol, so
+batched rebuild's middleware boundary is the SessionRuntime socket protocol, so
 these tests spawn *real OS producer processes* (openmeters_tpu.ingest
 .producer) and assert the routing/reset/recovery invariants end to end:
 identity -> slot routing, remembered re-acquisition after disconnects,

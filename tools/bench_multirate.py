@@ -1,12 +1,12 @@
 """Multi-rate co-residency: do a 44.1 kHz and a 48 kHz engine bucket hold
-realtime TOGETHER on one chip at realistic shapes?
+realtime TOGETHER on one card at realistic shapes?
 
 ``MultiRateMeterServer`` runs one engine per rate (meter.rs:20-25) with
-serialized dispatches on the same chip.  This measures that contract at
+serialized dispatches on the same card.  This measures that contract at
 production scale: both buckets' steps run inside ONE jitted function (XLA
-schedules them on the chip exactly as the serving loop's back-to-back
-dispatches do, minus per-dispatch link latency), chained over a K-step scan
-with full-leaf probes (the honest bench.py methodology).
+schedules them on the card exactly as the serving loop's back-to-back
+dispatches do, minus per-dispatch overhead), chained over a K-step scan
+with full-leaf probes (the bench.py methodology).  GPU only.
 
 Realtime bound: the CADENCE is one 48k-hop (5.333 ms); the 44.1k bucket's
 235-frame block spans the same wall time, so the combined step must finish
@@ -21,8 +21,6 @@ import os
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
@@ -34,6 +32,10 @@ def main():
 
     from openmeters_tpu.analyzers.spectrogram import SpectrogramConfig
     from openmeters_tpu.engine import EngineConfig, MeterEngine, StreamMeta
+    from openmeters_tpu.runtime_env import card_line, require_gpu, setup_compile_cache
+
+    setup_compile_cache()
+    require_gpu()
 
     s = int(sys.argv[1]) if len(sys.argv) > 1 else 2048
     iters = int(sys.argv[2]) if len(sys.argv) > 2 else 32
@@ -86,7 +88,7 @@ def main():
     cs, probes = run_k(
         carries[rates[0]], carries[rates[1]], blocks[rates[0]], blocks[rates[1]]
     )
-    float(np.asarray(probes)[-1])
+    jax.block_until_ready(probes)
     dt = np.inf
     for _ in range(3):
         t0 = time.perf_counter()
@@ -94,7 +96,7 @@ def main():
             carries[rates[0]], carries[rates[1]],
             blocks[rates[0]], blocks[rates[1]],
         )
-        float(np.asarray(probes)[-1])
+        jax.block_until_ready(probes)
         dt = min(dt, (time.perf_counter() - t0) / iters)
 
     hop_s = 256 / 48_000.0  # the shared cadence (one 48k hop of wall time)
@@ -103,7 +105,7 @@ def main():
     print(
         f"# multirate 44.1k+48k {s}+{s} streams: {dt * 1e3:.2f} ms per "
         f"{hop_s * 1e3:.2f} ms cadence -> {total * hop_s / dt:.0f} combined "
-        f"realtime streams ({verdict})"
+        f"realtime streams ({verdict}) [{card_line()}]"
     )
 
 
